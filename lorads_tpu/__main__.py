@@ -3,8 +3,8 @@
 Usage:  python -m lorads_tpu <file.dat-s> [--timesLogRank 2.0 ...]
 
 Flag names and defaults follow /root/reference/src_semi/main.c:19-80 so
-existing LoRADS comparison tooling keeps working.  Extra TPU-native
-flags are grouped at the end.
+existing LoRADS comparison tooling keeps working.  Extension flags
+with no reference counterpart are grouped at the end.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="lorads_tpu",
-        description="TPU-native low-rank SDP solver (LoRADS rebuild)")
+        description="Low-rank SDP solver on JAX/XLA (LoRADS rebuild)")
     p.add_argument("fname", nargs="+",
                    help="SDPA sparse-format .dat-s file(s); several "
                         "files merge block-diagonally into ONE "
@@ -67,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
                         " instead of the default vectorized Jacobi "
                         "sweep; serial on device — use on strongly "
                         "coupled LP blocks")
-    # TPU-native extensions
+    # extensions (no reference counterpart)
     p.add_argument("--dtype", choices=["auto", "f64", "f32"],
                    default="auto")
     p.add_argument("--seed", type=int, default=925)
@@ -119,6 +119,8 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGINT, _sigint)
     args = build_parser().parse_args(argv)
+
+    import numpy as np
 
     from lorads_tpu.config import LoradsParams
     from lorads_tpu.io.sdpa import read_sdpa
@@ -189,7 +191,6 @@ def main(argv=None) -> int:
     if args.warmStart:
         import zipfile
 
-        import numpy as np
         try:
             with np.load(args.warmStart) as z:
                 fs = [z[f"f{i}"]
@@ -225,6 +226,12 @@ def main(argv=None) -> int:
     print("-" * 71)
     print(f"solve time (s): {res.solve_time:.6f}")
     print(f"dual infeasibility time (s): {res.dual_infeas_time:.6f}")
+    a, d = res.alm_stats, res.admm_stats
+    print(f"ALM outer / inner iterations: {a.outer_iter} / {a.inner_iter}"
+          f", time (s): {a.time:.6f}")
+    print(f"ADMM / CG iterations: {d.iter} / {d.cg_iter}"
+          f", time (s): {d.time:.6f}")
+    print(f"final dtype: {np.dtype(solver.dtype).name}")
     if args.solOut:
         solver.save_solution(args.solOut)
         print(f"solution written to {args.solOut}")

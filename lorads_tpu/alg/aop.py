@@ -103,24 +103,15 @@ def pin_factors(pd: ProblemData, fv: FactorVec) -> FactorVec:
     L-BFGS history row-wise mid-loop and re-gathers them at every
     kernel entry (see pattern.BucketData.mesh / DESIGN.md #21).
 
-    Replicated factors are a MEASURED choice for sp too (round 4):
-    pinning the summed bucket's factor rows over the mesh instead
-    (so the L-BFGS two-loop / axpy / line-search algebra partitions)
-    probes WORSE — pinned @2dev eff 0.55 vs 0.81 replicated on the
-    maxcut n=20000 deg-8 instance — because GSPMD re-gathers the
-    rows at every pattern-kernel gather site, and those re-gathers
-    outweigh the partitioned elementwise work.
-
-    Round 5 re-design of that negative result (pattern.
-    SUMMED_FACTOR_SHARD): n-shard the summed-bucket carries but keep
-    every kernel ENTRY pinned replicated, so there is exactly ONE
-    all_gather per kernel call and a reduce_scatter at the exit —
-    same comm volume as the replicated psum, fully partitioned
-    elementwise algebra."""
-    return FactorVec(tuple(
-        pat.pin_factor_summed(bk, x) if bk.summed else pat._pin(bk, x)
-        for bk, x in zip(pd.buckets, fv.cones)),
-        fv.lp)
+    Replicated factors are the chosen layout for sp too: pinning the
+    summed bucket's factor rows over the mesh instead (so the L-BFGS
+    two-loop / axpy / line-search algebra partitions) makes GSPMD
+    re-gather the rows at every pattern-kernel gather site, and those
+    re-gathers outweighed the partitioned elementwise work when it was
+    tried (docs/DESIGN.md #28)."""
+    return FactorVec(tuple(pat._pin(bk, x)
+                           for bk, x in zip(pd.buckets, fv.cones)),
+                     fv.lp)
 
 
 def pin_history(pd: ProblemData, h):

@@ -68,8 +68,7 @@ def cg_solve(op: Callable[[jnp.ndarray], jnp.ndarray], x0: jnp.ndarray,
         # tol/maxiter exits).  A tol below the arithmetic noise floor
         # (f32 with a tiny pinf-scaled tol) otherwise burns the full
         # 800-iteration cap per solve at NO iterate improvement —
-        # measured 71k CG iters per 87 ADMM iters on matcomp2000,
-        # long enough on-device to kill a remote worker.  A block
+        # 71k CG iters per 87 ADMM iters on matcomp2000.  A block
         # whose residual hasn't improved 1% in 40 iterations (two
         # true-residual restarts) has hit ITS floor; stop it there —
         # this keeps whatever depth IS reachable, unlike a fixed
@@ -106,8 +105,8 @@ def cg_solve_ir(op_hi: Callable[[jnp.ndarray], jnp.ndarray],
     r = b - op_hi(x) exactly.  The stopping rule is the reference's
     ||r||_2 / ||b||_1 < tol on the TRUE f64 residual — identical
     accuracy semantics to an all-f64 solve, at one f64 matvec per pass
-    instead of one per CG iteration (f64 emulation costs ~12x f32 per
-    matvec on TPU, DESIGN.md #19c).  Standard IR convergence applies:
+    instead of one per CG iteration (DESIGN.md #19c).  Standard IR
+    convergence applies:
     the residual contracts per pass until kappa(N) * eps_f32 ~ 1, where
     an all-f64 CG also stops progressing in comparable budgets; a pass
     that fails to halve the residual marks the block done at its floor

@@ -11,7 +11,7 @@ LINEAR least-squares problem
 The reference reaches the same stationarity (2 S R = 0 is exactly the
 ALM gradient at the implied multiplier) by re-grinding a high-rho ALM
 on R through reopt rounds (lorads_solver.c:1075-1117, main.c:414-476)
-— gradient descent in R at ~12x-emulated f64 on TPU.  Solving (LS)
+— gradient descent in R at f64.  Solving (LS)
 directly in lambda is a handful of CGNR iterations on operators the
 solver already has:
 

@@ -8,9 +8,10 @@ infeasibility certificate lambda_min(C - A^*(lambda))
 Design: the k-step full-reorthogonalization sweep (all matvecs) runs
 on device as one jitted fori_loop batched over the bucket axis; the
 k x k tridiagonal eigenproblem and the Ritz-restart logic run on host
-in float64 — it is O(k^2) work at termination time, and keeping it off
-the accelerator avoids a slow batched-eigh compile and any f32
-degradation of the certificate itself.
+in float64 — it is O(k^2) work at termination time, and keeping it on
+the host avoids a batched-eigh compile and any f32 degradation of the
+certificate itself.  (lanczos_min_eig_device below is the on-device
+variant the solver uses.)
 """
 
 from __future__ import annotations
@@ -177,10 +178,9 @@ def lanczos_min_eig_device(matvec: Callable, v0: jnp.ndarray,
     restart loop runs entirely at v0's (lower) precision — eigenVECTORS
     only need f32 accuracy — and the returned eigenvalue is the final
     Ritz vector's Rayleigh quotient at matvec_hi's precision, which
-    SQUARES the low-precision angle error (~1e-4 -> ~1e-8 relative;
-    same refinement _exact_min_eig uses for the eigh rescue).  On an
-    f64-escalated solve this removes every ~12x-emulated f64 sweep
-    matvec from the certificate: one f64 matvec total per bucket.
+    SQUARES the low-precision angle error (~1e-4 -> ~1e-8 relative).
+    On an f64-escalated solve this removes every f64 sweep matvec
+    from the certificate: one f64 matvec total per bucket.
     """
     B, n = v0.shape
     k = min(k, n)

@@ -108,7 +108,7 @@ def alm_line_search(rho, lam, p1, p2, q0, q1, q2):
     # Normalize the derivative cubic by its largest coefficient before
     # the discriminant: roots are scale-invariant, and B^2 - 4AC on the
     # raw coefficients overflows f32 for rho-scaled problems (observed
-    # ~1e47 on TPU), turning a healthy descent step into a spurious
+    # ~1e47), turning a healthy descent step into a spurious
     # "no root" numerical failure.
     ca, cb, cc, cd = 4.0 * a, 3.0 * b, 2.0 * c, d
     scale = jnp.maximum(

@@ -172,10 +172,10 @@ def lbfgs_direction_compact(hist: LBFGSHistory,
     NOT the default: mathematically identical to the two-loop
     recursion, but the Gram-matrix formulation squares the conditioning
     of the history dots, and at float32 the accumulated difference
-    derails long trajectories (theta300: 34 s certified with two-loop
-    vs 58 s partial with this form) and is measurably SLOWER end-to-end
-    even on the headline (maxcut20000 2.78 s vs 2.52 s) — the fused
-    Gram matmul saves device time but costs iterations.  Kept as a
+    derails long trajectories (theta300 certified with two-loop but
+    ended partial with this form) and costs iterations even on
+    maxcut20000 — the fused Gram matmul saves device time per
+    iteration but needs more of them.  Kept as a
     tested alternative for future layouts where the 2L+1 sequential
     stages dominate.
 
@@ -255,5 +255,5 @@ def lbfgs_direction_compact(hist: LBFGSHistory,
 
 
 # Default direction: the two-loop recursion (reference parity, and the
-# faster + more f32-stable form end-to-end; see lbfgs_direction_compact).
+# more f32-stable form end-to-end; see lbfgs_direction_compact).
 lbfgs_direction = lbfgs_direction_twoloop

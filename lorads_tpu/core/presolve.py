@@ -18,7 +18,7 @@ trace-time static choices:
   (/root/reference/src_semi/data/lorads_solver.c:290-319).
 
 Blocks are then grouped into shape buckets (geometric dim classes) so
-same-shaped blocks can be vmapped / sharded on TPU; all ragged arrays
+same-shaped blocks can be vmapped / sharded on device; all ragged arrays
 are zero-padded to per-bucket maxima.
 """
 

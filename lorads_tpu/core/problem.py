@@ -2,7 +2,7 @@
 
 The reference keeps conic data behind pointer vtables
 (/root/reference/src_semi/data/def_lorads_sdp_conic.h:53-97 and
-def_lorads_sdp_data.h:30-56).  The TPU rebuild replaces that with plain
+def_lorads_sdp_data.h:30-56).  This rebuild replaces that with plain
 arrays + static metadata: each SDP block stores its objective C and its
 constraint matrices A_i as flat lower-triangular COO triplets; all
 layout decisions (dense vs. pattern-sparse kernels) are made once at
@@ -183,8 +183,8 @@ def merge_problems(problems: List["SDPProblem"]) -> "SDPProblem":
     Constraint slots are offset per instance, so the instances stay
     fully decoupled; same-shape blocks across instances land in the
     same presolve bucket and the whole batch is solved as ONE
-    vectorized [B, n, r] program — batched instance solving is a
-    TPU capability with no reference counterpart (the reference
+    vectorized [B, n, r] program — batched instance solving is an
+    extension with no reference counterpart (the reference
     solves one instance per process).  Use ``split_objectives`` (or
     ``LoradsSolver.x_blocks``) to read per-instance results back.
     """

@@ -1,15 +1,15 @@
 """Multi-host initialization and mesh construction.
 
 The reference has no distributed backend (SURVEY.md §2: no MPI/NCCL);
-the TPU-native equivalent is `jax.distributed` per host plus XLA
-collectives over ICI/DCN emitted from the shard_map programs in
-`sharded.py`.  This module is the thin control-plane layer:
+the JAX equivalent is `jax.distributed` per host plus XLA collectives
+emitted from the shard_map programs in `sharded.py` (NCCL on GPUs).
+This module is the thin control-plane layer:
 
 * `init_multihost()` — call once per host process before any jax op
   (reads the standard coordinator env vars, or takes them directly);
-* `solver_mesh()` — builds the device mesh with the block axis over
-  all global devices (ICI-first ordering is jax's default device
-  order on TPU slices).
+* `solver_mesh()` — builds the 1-D device mesh with the block axis
+  over all global devices.  The GPUs of one host reach each other all
+  to all (NVLink), so device order does not matter for it.
 
 Single-host/single-chip runs need none of this; everything degrades
 to the local-device path.
@@ -26,11 +26,12 @@ import numpy as np
 def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None) -> None:
-    """Initialize jax.distributed for a multi-host TPU slice.
+    """Initialize jax.distributed for a multi-process run.
 
-    With no arguments, uses JAX's automatic cluster detection (TPU
-    metadata / the JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
-    JAX_PROCESS_ID env vars).  Safe to call once per process.
+    Pass the coordinator address, process count and process id, or
+    set the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID env vars (JAX's own cluster detection finds no
+    cluster on a plain GPU host).  Safe to call once per process.
     """
     import jax
 
@@ -49,7 +50,7 @@ def init_multihost(coordinator_address: Optional[str] = None,
 def solver_mesh(n_devices: Optional[int] = None):
     """Mesh over global devices with the cone-block axis "blk".
 
-    On a multi-host slice, `jax.devices()` returns the global device
+    In a multi-process run, `jax.devices()` returns the global device
     list; sharded arrays are created with
     `jax.make_array_from_process_local_data` or device_put with a
     NamedSharding over this mesh (see sharded.shard_bucket_axis).

@@ -10,7 +10,8 @@ factor matrices U/V replicated (n x r is small).
 Per gradient/step the only cross-device traffic is:
   * psum of the per-constraint inner products  [m_loc]
   * psum of the partial W.X products           [n, r]
-— both ride ICI; everything else is shard-local gather/segment-sum.
+— both are collectives across the devices; everything else is
+shard-local gather/segment-sum.
 
 Shapes: every array gets a leading device axis D and is sharded on it
 with shard_map; inside the mapped function each device sees its own

@@ -3,7 +3,7 @@
 The third sharding axis (after block-axis dp in sharded.py and
 pattern-axis sp in pattern_sharded.py): the O(n^2) dense objects —
 sym(UV^T) and W = C + A^*(w) — are sharded by ROW SLAB over the mesh,
-i.e. the TPU equivalent of a row-distributed dsyr2k/dsymm
+i.e. the JAX equivalent of a row-distributed dsyr2k/dsymm
 (reference dense kernels: lorads_alg_common.c:50-67 via fds_syr2k,
 lorads_sdp_data.c:646-671 via dsymm).  Factors U, V (n x r, small)
 stay replicated; device d owns rows [d*n_loc, (d+1)*n_loc) of every
@@ -13,7 +13,8 @@ falls in its slab.
 Per gradient step the only cross-device traffic is:
   * psum of the per-constraint inner products        [m_loc]
   * all_gather of the disjoint W.U row slabs         [n_loc, r] each
-— both ride ICI.  The n x n matrices are never materialized on one
+— both are collectives across the devices.  The n x n matrices are
+never materialized on one
 device, so the memory ceiling for a single huge dense cone becomes
 n^2/D per chip.
 
@@ -232,8 +233,8 @@ def uvt_slab(rs: RowShardData, row0, U: jnp.ndarray, V: jnp.ndarray,
              U_pad: jnp.ndarray, V_pad: jnp.ndarray) -> jnp.ndarray:
     """Row slab of sym(UV^T): 0.5 (U_loc V^T + V_loc U^T) -> [n_loc, n].
 
-    The row-sharded dsyr2k: each device computes only its slab on the
-    MXU (reference: fds_syr2k, lorads_dense_opts.c:529-539).
+    The row-sharded dsyr2k: each device computes only its slab as a
+    matrix product (reference: fds_syr2k, lorads_dense_opts.c:529-539).
     """
     r = U.shape[1]
     zero = jnp.zeros((), row0.dtype)

@@ -2,11 +2,11 @@
 
 The reference is single-threaded (SURVEY.md §2: no MPI/NCCL/threads);
 the latent concurrency is the block decomposition — cones couple only
-through the m-vector constrValSum, a sum over cones.  TPU mapping:
+through the m-vector constrValSum, a sum over cones.  Device mapping:
 
 * bucket block axis B sharded over mesh axis "blk" (shard_map);
 * per-device partial constraint scatters reduced with jax.lax.psum
-  over ICI;
+  (an all-reduce across the devices);
 * U/V/dual replicated (factors are n x r, small), CG runs per block
   with no cross-device traffic.
 

@@ -5,7 +5,7 @@ artifact is warm-started reopt from the in-memory (U, V, R, lambda,
 rho) tuple (lorads_solver.c:1075-1117).  Here the factor/dual state is
 a small pytree, saved per outer iteration as a single .npz plus a JSON
 sidecar of host-side schedule state, so a long solve can resume after
-preemption — the TPU-native equivalent of a training-job checkpoint.
+preemption — the equivalent of a training-job checkpoint.
 """
 
 from __future__ import annotations

@@ -121,7 +121,7 @@ def test_lp_kernels():
     w = rng.standard_normal(8)
     A = problem.lp.dense_matrix()
     # f64 sums now route through the compensated pair scan whose error
-    # contract is ~2^-48 |prefix| (pattern.comp_segment_sum) — a hair
+    # contract is ~2^-47 |prefix| (pattern.comp_segment_sum) — a hair
     # above f64 ulp on small outputs, hence rtol 1e-11 + tiny atol
     np.testing.assert_allclose(
         np.asarray(lp_ops.constr_vals(lpd, jnp.asarray(u * v))),
@@ -533,7 +533,7 @@ def test_single_segment_sum_matches_scatter():
 def test_comp_segment_sum_accuracy():
     """Round-5 compensated pair-scan path: error ~eps32 |segment| at
     f32 (the raw f32 cumsum difference is eps32 |prefix| — orders
-    worse), ~2^-48 |prefix| at f64.  Also guards against an XLA
+    worse), ~2^-47 |prefix| at f64.  Also guards against an XLA
     simplifier ever folding the TwoSum error term to zero (the f32
     branch would then degrade to the raw-cumsum error and fail)."""
     rng = np.random.default_rng(7)
@@ -563,7 +563,7 @@ def test_comp_segment_sum_accuracy():
         jnp.asarray(data64, jnp.float32), bounds))
     assert np.abs(raw32 - exact).max() > 4 * err32.max()
 
-    # f64 (Dekker split) path
+    # f64 (split_f64) path
     got64 = np.asarray(pat.comp_segment_sum(jnp.asarray(data64), bounds))
     pref_l1 = np.abs(data64).sum(axis=1, keepdims=True)
     assert np.abs(got64 - exact).max() <= 1e-13 * pref_l1.max()
@@ -637,9 +637,9 @@ def test_cmul_chunked_matches(monkeypatch):
     ref = np.asarray(pat.cmul(bk, X))
     monkeypatch.setattr(pat, "_CMUL_CHUNK", 137)
     got = np.asarray(pat.cmul(bk, X))
-    # 2^-48-class compensated-scan rounding differs per chunking
+    # 2^-47-class compensated-scan rounding differs per chunking
     np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)
-    # f32 too (the production TPU dtype)
+    # f32 too (the dtype="auto" start on accelerators)
     bk32 = pat.build_bucket_data(bp, problem.m, jnp.float32)
     X32 = X.astype(jnp.float32)
     monkeypatch.setattr(pat, "_CMUL_CHUNK", 10 ** 9)
@@ -647,3 +647,18 @@ def test_cmul_chunked_matches(monkeypatch):
     monkeypatch.setattr(pat, "_CMUL_CHUNK", 137)
     got32 = np.asarray(pat.cmul(bk32, X32))
     np.testing.assert_allclose(got32, ref32, rtol=1e-5, atol=1e-5)
+
+
+def test_split_f64_planes():
+    """split_f64: hi is exact in f32, hi + lo recovers x to 2^-47 |x|,
+    and the split never rounds through f32 and back (XLA:GPU folds
+    such a convert pair to the identity, which zeroed lo)."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(4096) * np.exp(rng.uniform(-20, 20, 4096))
+    hi, lo = jax.jit(pat.split_f64)(jnp.asarray(x))
+    assert hi.dtype == jnp.float32 and lo.dtype == jnp.float32
+    h, l_ = np.asarray(hi, np.float64), np.asarray(lo, np.float64)
+    assert np.all(np.abs(l_) > 0)
+    assert np.all(np.abs(h + l_ - x) <= 2.0 ** -47 * np.abs(x))
+    hlo = jax.jit(pat.split_f64).lower(jnp.asarray(x)).as_text()
+    assert "tensor<4096xf32>) -> tensor<4096xf64>" not in hlo

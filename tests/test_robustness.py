@@ -48,7 +48,7 @@ def test_preemptive_f64_escalation_on_tight_pinf_target():
                                            frac_obs=0.3, seed=0)
     # shrink tol until the target crosses the threshold for this b
     # CPU auto-dtype resolves straight to f64, so force the f32 start
-    # and re-enable auto escalation (the TPU auto path's state)
+    # and re-enable auto escalation (the accelerator auto path's state)
     s = LoradsSolver(problem, LoradsParams(verbose=False, dtype="f32",
                                            phase2_tol=1e-9))
     s._auto_dtype = True
@@ -78,3 +78,23 @@ def test_gap_continuation_improves_final_gap():
     # the continuation must not leave the gap worse than the
     # reopt-based control beyond the strict tolerance itself
     assert on.gap <= max(off.gap, 1e-5) * 1.5
+
+
+def test_f32_admm_divergence_is_caught():
+    """At f32 a splitting entered below its stable rho overflows to NaN
+    before the pinf/gap thresholds trip (NaN compares False, and
+    1 - 1e-8 rounds to 1.0 at f32): the non-finite guard must hand it
+    to the divergence recovery (retry at 5x rho) instead of iterating
+    NaNs to the cap.  Instance: blocks of two sizes plus an LP block
+    sharing one constraint set (chip_smoke.py's multi-block case)."""
+    from lorads_tpu.core.problem import SDPProblem
+
+    a = generators.random_multiblock(n_blocks=3, dim=40, m=60, seed=11)
+    b = generators.random_multiblock(n_blocks=2, dim=90, m=60, n_lp=8,
+                                     seed=12)
+    problem = SDPProblem(m=60, rhs=a.rhs + b.rhs,
+                         blocks=a.blocks + b.blocks, lp=b.lp)
+    res = LoradsSolver(problem, LoradsParams(
+        verbose=False, dtype="f32", max_admm_iter=500)).solve()
+    assert np.isfinite(res.pobj)
+    assert res.status.value == "primal_dual_optimal"

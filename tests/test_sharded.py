@@ -423,8 +423,8 @@ def test_tp_per_device_memory_ceiling(eight_devices):
     gradient program (which materializes the n x n sym(UV^T) and W
     intermediates) is exactly the single-chip-HBM relief: measured
     7.5x at D=8, n=2048 (50.8 MB -> 6.8 MB/device; scaling the same
-    program to n=65536 f32 gives 52 GB unsharded — over any v5e/v5p
-    chip's HBM — vs 6.9 GB/device sharded)."""
+    program to n=65536 f32 gives 52 GB unsharded — over what one 80 GB
+    card leaves a JAX process — vs 6.9 GB/device sharded)."""
     problem = generators.lovasz_theta(n=1024, avg_degree=6, seed=0)
 
     @jax.jit

@@ -331,7 +331,7 @@ def test_jacobi_bucket_mode():
 
 
 def test_maxcut_f32_path():
-    """The production-TPU dtype converges on CPU too."""
+    """The f32 start of dtype="auto" on accelerators converges on CPU too."""
     problem = generators.maxcut(n=100, avg_degree=6, seed=21)
     res = _solve(problem, dtype="f32")
     assert res.status in (SolverStatus.PRIMAL_DUAL_OPTIMAL,
@@ -530,7 +530,7 @@ def test_high_acc_mode_end_to_end():
 
 
 def test_batched_instance_solving():
-    # TPU-native batch solving: merge same-shape independent instances
+    # batch solving: merge same-shape independent instances
     # into one block-diagonal problem; per-instance objectives match
     # the individual solves (they share one vectorized bucket)
     from lorads_tpu.core.problem import merge_problems, split_objectives
